@@ -1,33 +1,30 @@
-"""Production-scale single-chip benchmark: the huge-table code path.
+"""Single-GPU benchmark of the huge-table code path.
 
-BASELINE.json's config 5 (100M users x 10M items, d=128) needs a multi-host
-mesh for the f32 footprint alone; tests validate that scale abstractly
-(tests/test_large_scale.py) and the sharding on a virtual mesh. This
-benchmark runs the SAME code path — tables above
+BASELINE.json's config 5 (100M users x 10M items, d=128) needs a
+multi-device mesh for the f32 footprint alone; tests validate that scale
+abstractly (tests/test_large_scale.py) and the sharding on a virtual
+mesh. This benchmark runs the SAME code path — tables above
 ``scatter.DENSE_ROWS_THRESHOLD`` rows take the sort-dedup row updates
-instead of the dense-accumulator pass — at the largest geometry that fits
-one 16 GB v5e chip, so the path is exercised on real hardware, not just
-traced:
+instead of the dense-accumulator pass — on one card:
 
     16M users x 6M items, d=64, bf16 tables, 40M interactions,
     tile negative sampler + per-epoch cached history means,
     emb_pad=128 physical row width (see below).
 
-Physical row width (CFConfig.emb_pad): half-lane (N, 64) bf16 rows
-latency-serialize — row scatters cost ~180 ns/row and every d-wide pass
-pays the fractional-sublane layout. Padding the tables to (N, 128) with
-zero tails (identical math, tested) measured **36.4 -> 11.8 s/epoch
-(3.08x, 3.39M interactions/s)** on this geometry, at the price of real
-HBM bytes (bf16 is stored compactly at rest: 128 B/row at width 64,
-256 B at width 128 — the at-rest lane-padding assumption in earlier
-rounds was wrong for bf16).
+The geometry was sized for a 16 GB device and leaves most of an 80 GB
+H100 empty (ROADMAP 1.5 re-sizes it). Physical row width
+(CFConfig.emb_pad): padding the tables to (N, 128) with zero tails
+(identical math, tested) was the faster layout on the previous
+accelerator; whether it is on the GPU is not measured yet. It costs real
+bytes: bf16 is stored compactly at rest, 128 B/row at width 64 and 256 B
+at width 128.
 
-HBM budget at width 128: user 4.1 GB + pooled means 4.1 GB + item
-1.5 GB + flat history 0.64 GB + pairs 0.32 GB + packed batches 0.5 GB
-~= 11.2 GB steady state. The f32 init intermediates must cast to bf16
-BEFORE the pad concat (models/state.py) or init alone OOMs.
+Device-memory budget at width 128: user 4.1 GB + pooled means 4.1 GB +
+item 1.5 GB + flat history 0.64 GB + pairs 0.32 GB + packed batches
+0.5 GB ~= 11.2 GB steady state. The f32 init intermediates must cast to
+bf16 BEFORE the pad concat (models/state.py).
 
-Prints exactly one JSON line.
+Refuses to run where JAX finds no GPU. Prints exactly one JSON line.
 """
 
 from __future__ import annotations
@@ -38,10 +35,10 @@ import time
 
 import numpy as np
 
-from heat_tpu.config import CFConfig
-from heat_tpu.data.datasets import ClickDataset
-from heat_tpu.train.engine import Engine
-from heat_tpu.train.scatter import DENSE_ROWS_THRESHOLD
+from heat_cf.config import CFConfig
+from heat_cf.data.datasets import ClickDataset
+from heat_cf.train.engine import Engine
+from heat_cf.train.scatter import DENSE_ROWS_THRESHOLD
 
 
 def make_dataset(
@@ -63,10 +60,44 @@ def make_dataset(
     )
 
 
-def main() -> None:
-    from heat_tpu.utils.cache import enable_compilation_cache
+def make_config(
+    dim: int = 64,
+    negs: int = 16,
+    max_his: int = 10,
+    batch: int = 32_768,
+    tile: int = 0,
+    refresh: int = 32_768,
+    update_mode: str = "dedup",
+    emb_pad: int = 128,
+    aggregator: str = "mean",
+) -> CFConfig:
+    """The huge-table treatment: bf16 tables and scoring, tile sampler,
+    cached pooled means, emb_pad rows."""
+    return CFConfig(
+        emb_dim=dim,
+        num_negs=negs,
+        max_his=max_his,
+        batch_size=batch,
+        l_r=0.01,
+        clip_val=1.0,
+        milestones=[10],
+        seed=2022,
+        neg_sampler=1,
+        tile_size=tile,
+        refresh_interval=refresh,
+        his_refresh="subepoch",
+        compute_dtype="bfloat16",
+        param_dtype="bfloat16",
+        update_mode=update_mode,
+        emb_pad=emb_pad if emb_pad > dim else 0,
+        aggregator=aggregator,
+    )
 
-    enable_compilation_cache()  # repeat runs skip the remote re-compiles
+
+def main() -> None:
+    from heat_cf.utils.cache import enable_compilation_cache
+    from heat_cf.utils.device import device_peaks, device_record, require_gpu
+
     p = argparse.ArgumentParser()
     p.add_argument("--users", type=int, default=16_000_000)
     p.add_argument("--items", type=int, default=6_000_000)
@@ -76,8 +107,8 @@ def main() -> None:
     p.add_argument("--max-his", type=int, default=10)
     p.add_argument("--batch", type=int, default=32_768)
     # <= 0 auto-tunes (tile, refresh) per the paper-Alg.-1 analog; at batch
-    # 32768 that derives tile 128 — measured 31.0 ms/step vs 38.3 at an
-    # over-sized tile 2048 (the (B, T) score/count buffers are the cost).
+    # 32768 that derives tile 128 (the (B, T) score/count buffers shrink
+    # with the tile).
     p.add_argument("--tile", type=int, default=0)
     p.add_argument("--refresh", type=int, default=32_768)
     p.add_argument("--reps", type=int, default=2)
@@ -90,41 +121,32 @@ def main() -> None:
     p.add_argument(
         "--aggregator", type=str, default="mean",
         choices=("mean", "user_attention"),
-        help="history pooling (round 5: emb_pad composes with the "
-        "attention variants; user_attention at the reduced 6Mx4.5M "
-        "geometry measured 3.23 s with emb_pad=128 vs 5.28 half-lane. "
-        "self_attention needs his_refresh=step — not this harness's "
-        "cached-pools shape)",
+        help="history pooling (emb_pad composes with the attention "
+        "variants; self_attention needs his_refresh=step — not this "
+        "harness's cached-pools shape)",
     )
     p.add_argument(
         "--emb-pad", type=int, default=128,
-        help="physical minor width of the tables (CFConfig.emb_pad): "
-        "2.2x faster to row-scatter at 16M-row tables than half-lane "
-        "(N, 64) rows, at the price of doubled at-rest table bytes "
-        "(scripts/profile_lane_width.py); 0 disables",
+        help="physical minor width of the tables (CFConfig.emb_pad), at "
+        "the price of doubled at-rest table bytes; 0 disables",
     )
     args = p.parse_args()
+    dev = require_gpu()
+    peaks = device_peaks(dev.device_kind)
+    enable_compilation_cache()  # repeat runs skip re-compiling
 
     dataset = make_dataset(
         args.users, args.items, args.clicks, args.max_his
     )
-    cfg = CFConfig(
-        emb_dim=args.dim,
-        num_negs=args.negs,
+    cfg = make_config(
+        dim=args.dim,
+        negs=args.negs,
         max_his=args.max_his,
-        batch_size=args.batch,
-        l_r=0.01,
-        clip_val=1.0,
-        milestones=[10],
-        seed=2022,
-        neg_sampler=1,
-        tile_size=args.tile,
-        refresh_interval=args.refresh,
-        his_refresh="subepoch",
-        compute_dtype="bfloat16",
-        param_dtype="bfloat16",
+        batch=args.batch,
+        tile=args.tile,
+        refresh=args.refresh,
         update_mode=args.update_mode,
-        emb_pad=args.emb_pad if args.emb_pad > args.dim else 0,
+        emb_pad=args.emb_pad,
         aggregator=args.aggregator,
     )
     engine = Engine(cfg, dataset)
@@ -142,15 +164,10 @@ def main() -> None:
         times.append(time.perf_counter() - t0)
     epoch_s = float(np.median(times))
 
-    import jax
-
-    # Roofline fields (VERDICT r2 item 3): modeled algorithmically-
-    # necessary HBM traffic (table rows gathered/updated + the per-epoch
-    # pooled-means build; fused intermediates excluded) and the per-row
-    # issue counts that actually bound this geometry — row scatters/
-    # gathers here are latency-serialized (~100-200 ns/row at 16M-row
-    # tables, scripts/profile_large.py), so GB/s vs the 819 GB/s peak is
-    # context, not the bound.
+    # Roofline fields: modeled algorithmically-necessary device-memory
+    # traffic (table rows gathered/updated + the per-epoch pooled-means
+    # build; fused intermediates excluded) against the device's published
+    # peak, and the per-row gather/scatter counts.
     tile = engine.cfg.tile_size
     d = args.dim
     elem = 2  # bf16
@@ -182,13 +199,15 @@ def main() -> None:
         "losses": [round(l, 4) for l in losses],
         "hbm_gb_modeled": round(hbm_gb, 2),
         "hbm_gbps": round(hbm_gb / epoch_s, 1),
-        "hbm_peak_frac": round(hbm_gb / epoch_s / 819.0, 4),
+        "hbm_peak_frac": round(
+            hbm_gb * 1e9 / epoch_s / peaks["hbm_bytes_per_s"], 4
+        ),
         "rows_scattered": rows_scattered,
         "rows_gathered": rows_gathered,
         "scatter_ns_per_row_budget": round(
             epoch_s * 1e9 / max(1, rows_scattered), 1
         ),
-        "device": str(jax.devices()[0].platform),
+        "device": device_record(),
     }
     print(json.dumps(result))
 

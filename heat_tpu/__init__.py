@@ -1,35 +1,51 @@
-"""heat_tpu — a TPU-native collaborative-filtering training framework.
+"""The package's former import name, kept as an alias of :mod:`heat_cf`.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of HEAT
-(ICS'23, "Highly Efficient and Affordable Training system" for SimpleX-style
-collaborative filtering): matrix factorization with a behavior-aggregation
-layer, cosine/pairwise-logistic contrastive loss, configurable negative
-sampling, SGD with gradient clipping and milestone LR schedules, and full
-user x item top-k ranking evaluation.
-
-Where the reference (see /root/reference, surveyed in SURVEY.md) is a
-cache-tiled per-sample CPU SGD engine driven over MPI, this framework is
-built TPU-first:
-
-* minibatched, vectorized gather -> fused similarity/loss/grad ->
-  segment-sum scatter-update, jitted end to end;
-* embedding tables row-sharded over a `jax.sharding.Mesh` (users over the
-  "data" axis, items over the "model" axis) with XLA collectives in place
-  of the reference's per-row MPI_Bcast/MPI_Allreduce;
-* Pallas kernels for the hot gather/score and eval top-k paths;
-* Orbax checkpointing, deterministic `jax.random` seeding, and an on-device
-  tiled evaluator instead of a host-side numpy argpartition.
+Existing imports and ``python -m <this package>.main`` keep working: every
+module imported under this name is the very module object of the same
+name under ``heat_cf`` (one copy of each class and table, one pytree
+registration). New code imports ``heat_cf``.
 """
 
-from heat_tpu.config import CFConfig, load_config
-from heat_tpu.models.state import TrainState, init_train_state
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-__version__ = "0.1.0"
+import heat_cf
 
-__all__ = [
-    "CFConfig",
-    "load_config",
-    "TrainState",
-    "init_train_state",
-    "__version__",
-]
+ALIAS_OF = heat_cf.__name__
+
+
+class _AliasLoader(importlib.abc.Loader):
+    def __init__(self, target: str):
+        self.target = target
+
+    def create_module(self, spec):
+        module = importlib.import_module(self.target)
+        self.spec = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # The import system stamped the alias spec on the module; give it
+        # back its own.
+        module.__spec__ = self.spec
+
+    def get_code(self, fullname):  # for ``python -m``
+        return importlib.util.find_spec(self.target).loader.get_code(self.target)
+
+
+class _AliasFinder(importlib.abc.MetaPathFinder):
+    def find_spec(self, fullname, path, target=None):
+        if not fullname.startswith(__name__ + "."):
+            return None
+        real = ALIAS_OF + fullname[len(__name__):]
+        real_spec = importlib.util.find_spec(real)
+        if real_spec is None:
+            return None
+        return importlib.util.spec_from_loader(
+            fullname, _AliasLoader(real), origin=real_spec.origin
+        )
+
+
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[__name__] = heat_cf

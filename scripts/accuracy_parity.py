@@ -10,8 +10,7 @@ prints both metric sets:
 
 The fast mode's approximations (tile working set, means staleness) must
 not cost ranking accuracy — this is the claim behind the README results
-table and the bench headline. Runs on whatever jax.devices() provides
-(~5 min on one v5e chip, dominated by eval compiles).
+table and the bench headline. Runs on whatever jax.devices() provides.
 
 Usage: python scripts/accuracy_parity.py [--users U] [--items I] [--epochs N]
 """
@@ -25,9 +24,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from heat_tpu.config import CFConfig  # noqa: E402
-from heat_tpu.data.synthetic import synthetic_click_dataset  # noqa: E402
-from heat_tpu.train.engine import Engine  # noqa: E402
+from heat_cf.config import CFConfig  # noqa: E402
+from heat_cf.data.synthetic import synthetic_click_dataset  # noqa: E402
+from heat_cf.train.engine import Engine  # noqa: E402
 
 METRICS = ["Recall(k=20)", "Recall(k=50)", "NDCG(k=20)", "NDCG(k=50)"]
 
@@ -86,7 +85,7 @@ def run(
         raise SystemExit(
             f"unknown mode {mode!r} (expected fast|direct|default|exact)"
         )
-    # Round-5 axes (VERDICT r4 items 1/2/8): the ACCL attention
+    # Round-5 axes: the ACCL attention
     # aggregators, the CCL loss, and the optimizer menu each get the
     # same full-scale treatment as the headline path — the DESIGN.md 6g
     # lesson (equivalence tests prove faithfulness, not quality; every

@@ -1,6 +1,6 @@
 """Two-process multi-host training demo/check on CPU.
 
-Exercises the real multi-host path end to end without TPU pod hardware:
+Exercises the real multi-host path end to end without a multi-host cluster:
 each process runs this script with a process id; jax.distributed.initialize
 forms the job, every process parses/generates the dataset locally and takes
 its deterministic user-range shard, and the jitted epoch runs over a global
@@ -44,18 +44,18 @@ def worker(
 
     import numpy as np
 
-    from heat_tpu.config import CFConfig
-    from heat_tpu.data.datasets import shard_by_user_range
-    from heat_tpu.data.synthetic import synthetic_click_dataset
-    from heat_tpu.parallel.mesh import make_mesh
-    from heat_tpu.train.engine import Engine
+    from heat_cf.config import CFConfig
+    from heat_cf.data.datasets import shard_by_user_range
+    from heat_cf.data.synthetic import synthetic_click_dataset
+    from heat_cf.parallel.mesh import make_mesh
+    from heat_cf.train.engine import Engine
 
     # Every host generates the same dataset (stand-in for parsing the same
     # files) and slices its own user range with GLOBAL ids (the rows feed
     # one global row-sharded user table). 126 items is deliberately NOT a
     # multiple of 32 * n_model: the distributed eval must take the padded
     # shard_map top-k path (sharded_pad_items), not the allgather fallback
-    # — the AmazonBooks odd-geometry shape (VERDICT r2 item 2).
+    # — the AmazonBooks odd-geometry shape.
     train, test = synthetic_click_dataset(
         num_users=64, num_items=126, clicks_per_user=12, max_his=6, seed=7
     )
@@ -83,7 +83,7 @@ def worker(
         )
     cfg = CFConfig(**kw)
     if variant == "fused":
-        # VERDICT r2 item 1: the multi-host fused multi-epoch program must
+        # the multi-host fused multi-epoch program must
         # reproduce sequential per-epoch dispatches exactly — for the
         # per-epoch-shuffled stream path (shuffle_mode "epoch" ->
         # make_multi_epoch_stream_fn) AND the fixed-stream path
@@ -217,7 +217,7 @@ def worker(
         return
 
     if variant == "subepoch":
-        # VERDICT r2 item 5: sub-epoch item partitioning across real
+        # sub-epoch item partitioning across real
         # processes — the host-side partition logic runs per process with
         # a same-seeded RNG and must agree across hosts.
         from jax.experimental import multihost_utils
@@ -268,7 +268,7 @@ def worker(
         jax.distributed.shutdown()
         return
     if variant == "serve":
-        # VERDICT r3 item 5: serving + export from a LIVE multi-host
+        # serving + export from a LIVE multi-host
         # sharded engine state. Recommender.from_engine allgathers the
         # table shards so every host serves the full user space; results
         # must be identical across hosts, the request path must equal the
@@ -280,8 +280,8 @@ def worker(
         import jax.numpy as jnp
         from jax.experimental import multihost_utils
 
-        from heat_tpu.export import export_embeddings, load_embeddings
-        from heat_tpu.serving import Recommender
+        from heat_cf.export import export_embeddings, load_embeddings
+        from heat_cf.serving import Recommender
 
         eng = Engine(CFConfig(**kw), local_train, local_test, mesh=mesh)
         losses = [eng.train_one_epoch() for _ in range(3)]
@@ -345,7 +345,7 @@ def worker(
         # Failure-recovery path: train, checkpoint (all hosts participate
         # in the sharded Orbax save), "crash", rebuild + restore, continue
         # — the continuation must reproduce the uninterrupted run exactly.
-        from heat_tpu.checkpoint import CheckpointManager
+        from heat_cf.checkpoint import CheckpointManager
 
         ckdir = os.environ["HEAT_DEMO_CKPT_DIR"]
         ref_losses = [engine.train_one_epoch() for _ in range(4)]
@@ -377,15 +377,15 @@ def worker(
     assert 0.0 <= m_agg["Recall(k=20)"] <= 1.0
     # The distributed shard_map evaluation must EQUAL the single-process
     # evaluator run on the gathered tables against the FULL test set
-    # (VERDICT r1 item 4: metric equality without materializing the item
+    # (metric equality without materializing the item
     # table per host in the eval path itself).
     from jax.experimental import multihost_utils
 
-    from heat_tpu.evaluation.evaluator import (
+    from heat_cf.evaluation.evaluator import (
         TiledEvaluator,
         sharded_topk_supported,
     )
-    from heat_tpu.evaluation.metrics import evaluate_metrics
+    from heat_cf.evaluation.metrics import evaluate_metrics
 
     assert sharded_topk_supported(
         mesh, train.num_items, 20, train.num_users
@@ -397,9 +397,6 @@ def worker(
     _, ref_ids = ref_ev.topk(ue, ie, 20)
     ref = evaluate_metrics(["Recall(k=20)"], ref_ids, test.user_items)
     assert abs(m["Recall(k=20)"] - ref["Recall(k=20)"]) < 1e-6, (m, ref)
-    # Approximate mode (per-shard approx_max_k) stays in the ballpark.
-    m_approx = engine.evaluate(exact=False, recall_target=0.95)
-    assert abs(m_approx["Recall(k=20)"] - m["Recall(k=20)"]) < 0.05
     print(
         f"proc {proc_id}: losses {losses[0]:.5f} -> {losses[-1]:.5f} "
         f"recall@20 {m['Recall(k=20)']:.4f}",

@@ -1,14 +1,12 @@
 """Mesh-sweep FUNCTIONAL smoke: the same Engine workload on growing
 ("data" x "model") meshes over whatever devices exist.
 
-This is NOT a performance measurement. On this box only one real TPU chip
-is reachable, so multi-device meshes exist only as virtual CPU devices
-(XLA_FLAGS=--xla_force_host_platform_device_count=8), where throughput
-numbers are meaningless. What this smoke checks is that the production
-sharding layout trains at every mesh shape — losses finite and consistent
-with the single-device engine — i.e. the part of scaling that IS testable
-without a pod slice. Real >=2-chip scaling efficiency is hardware-blocked;
-see BASELINE.md "Scaling efficiency" note.
+This is NOT a performance measurement. Run on virtual CPU devices
+(XLA_FLAGS=--xla_force_host_platform_device_count=8) throughput numbers
+are meaningless; what this smoke checks is that the production sharding
+layout trains at every mesh shape — losses finite and consistent with the
+single-device engine. The sharded path on real GPUs is checked by
+``python chip_smoke.py --four-cards``.
 
 Prints one JSON line labeled {"functional_only": true}.
 """
@@ -21,10 +19,10 @@ import json
 import jax
 import numpy as np
 
-from heat_tpu.config import CFConfig
-from heat_tpu.data.synthetic import synthetic_click_dataset
-from heat_tpu.parallel.mesh import default_mesh_shape, make_mesh
-from heat_tpu.train.engine import Engine
+from heat_cf.config import CFConfig
+from heat_cf.data.synthetic import synthetic_click_dataset
+from heat_cf.parallel.mesh import default_mesh_shape, make_mesh
+from heat_cf.train.engine import Engine
 
 
 def sweep(counts=None, users=96, items=47, clicks_per_user=12):

@@ -2,7 +2,7 @@
 exact semantics, written from the survey of matrix_factorization.cpp:15-181,
 behavior_aggregators.cpp:51-153, sgd.cpp:14-26, optimizer.cpp:17-22.
 
-This is the parity anchor: the batched TPU train step must reproduce these
+This is the parity anchor: the batched device train step must reproduce these
 numbers (up to f32 summation order) on batches with disjoint ids.
 
 Semantics captured:

@@ -12,15 +12,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from heat_tpu.config import CFConfig, config_from_dicts
-from heat_tpu.data.synthetic import synthetic_click_dataset
-from heat_tpu.models.aggregator import (
+from heat_cf.config import CFConfig, config_from_dicts
+from heat_cf.data.synthetic import synthetic_click_dataset
+from heat_cf.models.aggregator import (
     history_mean,
     history_mean_fused,
     pool_history,
 )
-from heat_tpu.models.state import init_train_state
-from heat_tpu.train.engine import Engine, compute_user_pools
+from heat_cf.models.state import init_train_state
+from heat_cf.train.engine import Engine, compute_user_pools
 
 
 def _np_attention_pool(his, mask, query):

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from heat_tpu.config import CFConfig
-from heat_tpu.data.synthetic import synthetic_click_dataset
-from heat_tpu.train.engine import Engine
+from heat_cf.config import CFConfig
+from heat_cf.data.synthetic import synthetic_click_dataset
+from heat_cf.train.engine import Engine
 
 
 def _cfg():
@@ -20,7 +20,7 @@ def _cfg():
 
 
 def test_save_restore_resumes_identically(tmp_path):
-    from heat_tpu.checkpoint import CheckpointManager
+    from heat_cf.checkpoint import CheckpointManager
 
     train, test = synthetic_click_dataset(
         num_users=60, num_items=120, clicks_per_user=15, max_his=6, seed=2
@@ -55,8 +55,8 @@ def test_save_restore_with_sharded_state(tmp_path):
     """Checkpoint a mesh-sharded state and restore it onto the mesh."""
     import jax
 
-    from heat_tpu.checkpoint import CheckpointManager
-    from heat_tpu.parallel.mesh import make_mesh
+    from heat_cf.checkpoint import CheckpointManager
+    from heat_cf.parallel.mesh import make_mesh
 
     train, test = synthetic_click_dataset(
         num_users=64, num_items=128, clicks_per_user=15, max_his=6, seed=4

@@ -2,7 +2,7 @@
 
 import pytest
 
-from heat_tpu.config import CFConfig, config_from_dicts, load_config
+from heat_cf.config import CFConfig, config_from_dicts, load_config
 
 
 def test_load_reference_format_configs():
@@ -72,7 +72,7 @@ def test_ccl_parse_order_hazard_warns():
     does not."""
     import warnings
 
-    from heat_tpu.config import CFConfig
+    from heat_cf.config import CFConfig
 
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
@@ -110,9 +110,171 @@ def test_ccl_parse_order_hazard_warns():
 
 
 def test_visit_order_validation():
-    from heat_tpu.config import CFConfig
+    from heat_cf.config import CFConfig
 
     import pytest
 
     with pytest.raises(ValueError, match="visit_order"):
         CFConfig(visit_order="zigzag")
+
+
+# --- the reference-schema config reader (no YAML package needed) -------------
+
+_DATASET = {
+    "data_format": "txt",
+    "separator": " ",
+    "train_data": "train.txt",
+    "test_data": "test.txt",
+}
+_METRICS6 = [
+    "Recall(k=20)", "Recall(k=50)", "NDCG(k=20)", "NDCG(k=50)",
+    "HitRate(k=20)", "HitRate(k=50)",
+]
+
+
+def _mf_ccl(num_negs, dim, clip, epochs, eval_interval):
+    return {
+        "num_negs": num_negs,
+        "max_his": 100,
+        "embedding_dim": dim,
+        "neg_sampler": 0,
+        "tile_size": 512,
+        "refresh_interval": 8192,
+        "embedding_dropout": 0,
+        "similarity_score": "dot",
+        "loss": "PairwiseLogisticLoss",
+        "metrics": _METRICS6,
+        "optimizer": "sgd",
+        "milestones": [10],
+        "learning_rate": 0.01,
+        "clip_val": clip,
+        "embedding_regularizer": 1e-7,
+        "net_regularizer": 0,
+        "net_dropout": 0,
+        "epochs": epochs,
+        "eval_interval": eval_interval,
+        "seed": 2022,
+        "batch_size": 8192,
+    }
+
+
+SHIPPED_CONFIGS = {
+    "AmazonBooks": {
+        "dataset_config": {"data_dir": "./data/amazon-book", **_DATASET},
+        "model_config": _mf_ccl(16, 64, 1.0, 5, 2),
+    },
+    "Gowalla": {
+        "dataset_config": {"data_dir": "./data/gowalla", **_DATASET},
+        "model_config": _mf_ccl(64, 128, 0.1, 8, 10),
+    },
+    "Yelp18": {
+        "dataset_config": {"data_dir": "./data/yelp2018", **_DATASET},
+        "model_config": _mf_ccl(64, 128, 0.1, 8, 10),
+    },
+    "Synthetic100M": {
+        "dataset_config": {"data_dir": "./data/synthetic100m", **_DATASET},
+        "model_config": {
+            "num_negs": 16,
+            "max_his": 100,
+            "embedding_dim": 128,
+            "neg_sampler": 1,
+            "tile_size": 4096,
+            "refresh_interval": 8192,
+            "loss": "PairwiseLogisticLoss",
+            "metrics": ["Recall(k=20)", "NDCG(k=20)"],
+            "milestones": [10],
+            "learning_rate": 0.01,
+            "clip_val": 1.0,
+            "embedding_regularizer": 0,
+            "epochs": 1,
+            "eval_interval": 10,
+            "seed": 2022,
+            "batch_size": 65536,
+            "his_refresh": "subepoch",
+        },
+    },
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHIPPED_CONFIGS))
+def test_shipped_config_parses_to_literal(name):
+    from heat_cf.config import parse_config_text
+
+    with open(f"benchmarks/{name}/config0.yaml") as fh:
+        got = parse_config_text(fh.read())
+    assert got == SHIPPED_CONFIGS[name]
+    # Types, not just values: ints stay ints, 1.e-2 is a float.
+    mc = got["model_config"]
+    assert type(mc["learning_rate"]) is float
+    assert type(mc["batch_size"]) is int
+
+
+@pytest.mark.parametrize(
+    "text,want",
+    [
+        ("1.e-2", 0.01),
+        ("1.e-7", 1e-7),
+        ("1e-3", 1e-3),
+        ("-5", -5),
+        ("0", 0),
+        ("' '", " "),
+        ('"a b"', "a b"),
+        ("'it''s'", "it's"),
+        ("[10]", [10]),
+        ("[]", []),
+        ("['Recall(k=20)', 'NDCG(k=50)']", ["Recall(k=20)", "NDCG(k=50)"]),
+        ("[1, 2.5, x]", [1, 2.5, "x"]),
+        ("0  # inline comment", 0),
+        ("dot # comment", "dot"),
+        ("'a # not a comment'", "a # not a comment"),
+        ("x#y", "x#y"),
+        ("true", True),
+        ("False", False),
+        ("null", None),
+        ("~", None),
+        ("bfloat16", "bfloat16"),
+        ("PairwiseLogisticLoss", "PairwiseLogisticLoss"),
+    ],
+)
+def test_parse_scalar(text, want):
+    from heat_cf.config import parse_scalar
+
+    got = parse_scalar(text)
+    assert got == want and type(got) is type(want)
+
+
+@pytest.mark.parametrize(
+    "text",
+    [
+        "a:\n\tb: 1\n",            # tab indentation
+        "a: 1\na: 2\n",            # duplicate key
+        "- item\n",                # block sequence
+        "a: [1, [2]]\n",           # nested flow collection
+        "a: 'open\n",              # unterminated quote
+        "a: {b: 1}\n",             # flow mapping
+        "a:\n    b: 1\n  c: 2\n",  # dedent to a level never opened
+    ],
+)
+def test_parse_config_text_rejects_unsupported(text):
+    from heat_cf.config import parse_config_text
+
+    with pytest.raises(ValueError):
+        parse_config_text(text)
+
+
+def test_parse_config_text_nesting_and_comments():
+    from heat_cf.config import parse_config_text
+
+    text = (
+        "# header\n"
+        "outer:\n"
+        "    inner:\n"
+        "        k: 1   # trailing\n"
+        "\n"
+        "    j: 'v'\n"
+        "top: [a, 'b c']\n"
+    )
+    assert parse_config_text(text) == {
+        "outer": {"inner": {"k": 1}, "j": "v"},
+        "top": ["a", "b c"],
+    }

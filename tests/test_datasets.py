@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from heat_tpu.data.datasets import ClickDataset, shard_by_user_range
-from heat_tpu.data.synthetic import synthetic_click_dataset
+from heat_cf.data.datasets import ClickDataset, shard_by_user_range
+from heat_cf.data.synthetic import synthetic_click_dataset
 
 
 def test_parse_file(tmp_path):
@@ -55,9 +55,9 @@ def test_native_parser_fuzz(tmp_path):
     """Native parser matches the python parser on messy inputs: CRLF,
     trailing separators, empty lines, duplicate users (last wins), gaps in
     user ids, large random content."""
-    pytest.importorskip("heat_tpu.native")
-    from heat_tpu.data.datasets import _parse_lines_numpy
-    from heat_tpu.native import parse_click_file
+    pytest.importorskip("heat_cf.native")
+    from heat_cf.data.datasets import _parse_lines_numpy
+    from heat_cf.native import parse_click_file
 
     rng = np.random.default_rng(3)
     lines = []
@@ -117,7 +117,7 @@ def test_synthetic_dataset_shapes():
 
 
 def test_load_with_cache(tmp_path):
-    from heat_tpu.data.datasets import load_with_cache
+    from heat_cf.data.datasets import load_with_cache
 
     p = tmp_path / "train.txt"
     p.write_text("0 5 3\n1 1 2 3\n")

@@ -4,9 +4,9 @@ sub-epoch partitioning, accum mode, and the evaluate() path."""
 import numpy as np
 import pytest
 
-from heat_tpu.config import CFConfig
-from heat_tpu.data.synthetic import synthetic_click_dataset
-from heat_tpu.train.engine import Engine
+from heat_cf.config import CFConfig
+from heat_cf.data.synthetic import synthetic_click_dataset
+from heat_cf.train.engine import Engine
 
 
 def small_cfg(**kw):
@@ -224,15 +224,16 @@ def test_kitchen_sink_config_trains(data):
 
 
 def test_flat_history_layout_equivalent(data):
-    """Engine stores history flat (U*H,) for small max_his (TPU lane-padding
-    avoidance); the flat gather in train_step must reproduce the (U, H)
-    row-gather bit-for-bit through a real train step."""
+    """Engine stores history flat (U*H,) for small max_his (a layout
+    choice to re-derive on the GPU, DESIGN.md §8); the flat gather in
+    train_step must reproduce the (U, H) row-gather bit-for-bit through a
+    real train step."""
     import jax
     import jax.numpy as jnp
 
-    from heat_tpu.models.state import init_train_state
-    from heat_tpu.train.samplers import init_sampler_state
-    from heat_tpu.train.train_step import Batch, train_step
+    from heat_cf.models.state import init_train_state
+    from heat_cf.train.samplers import init_sampler_state
+    from heat_cf.train.train_step import Batch, train_step
 
     train, _ = data
     cfg = small_cfg(his_refresh="step")
@@ -274,7 +275,7 @@ def test_shuffle_modes_train_and_cache(data):
     stream across epochs; both still learn on the planted clusters."""
     import jax.numpy as jnp
 
-    from heat_tpu.train.engine import _pack_batches
+    from heat_cf.train.engine import _pack_batches
 
     train, _ = data
     data = train
@@ -568,12 +569,10 @@ def test_train_epochs_fixed_stream_matches_sequential(data):
 
 
 def test_emb_pad_identical_math(data):
-    """Physical lane padding (CFConfig.emb_pad): the padded model must
+    """Physical row padding (CFConfig.emb_pad): the padded model must
     compute IDENTICAL math — zero tail columns are invariant through
     gathers, grads, updates, and w0's outer-product gradient — while the
-    tables carry the padded width. (The knob exists because full-sublane
-    bf16 rows scatter 2.2x faster at 16M-row tables;
-    scripts/profile_lane_width.py.)"""
+    tables carry the padded width."""
     train, test = data
     # Single-step semantic pin: one batch covering the whole epoch — only
     # f32 reduction-tree grouping can differ (the wider rows group the 16
@@ -690,7 +689,7 @@ def test_run_epochs_with_eval_resumed_schedule(data):
     cf/main.py:115-124): resume at epoch 3 of 7 with interval 2 still
     evals after epochs 4 and 6 — not 5 — and matches both the unfused
     resumed path and the uninterrupted run's metrics at those epochs."""
-    from heat_tpu.train.run import reference_schedule
+    from heat_cf.train.run import reference_schedule
 
     assert reference_schedule(4, 2, start_epoch=3) == ((2, True), (2, True))
     assert reference_schedule(7, 2) == ((3, True), (2, True), (2, True))
@@ -1022,9 +1021,9 @@ def test_history_dedup_attention_single_step_bitwise(agg):
     import jax
     import jax.numpy as jnp
 
-    from heat_tpu.models.state import init_train_state
-    from heat_tpu.train.samplers import init_sampler_state
-    from heat_tpu.train.train_step import Batch, train_step
+    from heat_cf.models.state import init_train_state
+    from heat_cf.train.samplers import init_sampler_state
+    from heat_cf.train.train_step import Batch, train_step
 
     cfg = CFConfig(
         emb_dim=16, num_users=50, num_items=80, max_his=6, num_negs=4,

@@ -3,7 +3,7 @@
 import jax
 import numpy as np
 
-from heat_tpu.evaluation.evaluator import (
+from heat_cf.evaluation.evaluator import (
     TiledEvaluator,
     full_sim_matrix,
     topk_scores,
@@ -65,7 +65,7 @@ def test_exact_topk_2phase_matches_lax_topk():
     import jax
     import jax.numpy as jnp
 
-    from heat_tpu.evaluation.evaluator import exact_topk_2phase
+    from heat_cf.evaluation.evaluator import exact_topk_2phase
 
     rng = np.random.default_rng(0)
     for b, n, k in [(7, 5000, 50), (3, 4096, 10), (5, 9973, 64), (2, 300, 20)]:
@@ -82,7 +82,7 @@ def test_exact_topk_2phase_with_masked_rows():
     import jax
     import jax.numpy as jnp
 
-    from heat_tpu.evaluation.evaluator import NEG_INF, exact_topk_2phase
+    from heat_cf.evaluation.evaluator import NEG_INF, exact_topk_2phase
 
     rng = np.random.default_rng(1)
     sim = rng.normal(size=(4, 6000)).astype(np.float32)
@@ -125,7 +125,7 @@ def test_exact_topk_2phase_recursive_wide():
     import jax
     import jax.numpy as jnp
 
-    from heat_tpu.evaluation.evaluator import exact_topk_2phase
+    from heat_cf.evaluation.evaluator import exact_topk_2phase
 
     rng = np.random.default_rng(5)
     n = 524_288  # 4096 windows of 128
@@ -138,17 +138,16 @@ def test_exact_topk_2phase_recursive_wide():
 
 
 def test_exact_topk_2phase_extraction_precision_pinned():
-    """Regression guard for a TPU-only inexactness: the candidate
-    extraction one-hot matmul must run at HIGHEST precision. The TPU
-    default truncates f32 operands to bf16 per pass, which rounds the
-    extracted scores and re-ranks candidates that differ below bf16
-    resolution — measured at AmazonBooks scale as Recall@20 0.0106 vs
-    lax.top_k's 0.0114 on identical masked scores (no boundary ties).
-    CPU matmuls are exact f32, so only the lowering can be pinned here."""
+    """Regression guard for an accelerator-only inexactness: the
+    candidate extraction one-hot matmul must run at HIGHEST precision. At
+    default precision a GPU runs f32 matmuls in TF32, which rounds the
+    extracted scores and re-ranks candidates that differ below TF32
+    resolution. CPU matmuls are exact f32, so only the lowering can be
+    pinned here."""
     import jax
     import jax.numpy as jnp
 
-    from heat_tpu.evaluation.evaluator import exact_topk_2phase
+    from heat_cf.evaluation.evaluator import exact_topk_2phase
 
     txt = jax.jit(lambda s: exact_topk_2phase(s, 10)).lower(
         jnp.zeros((2, 8192), jnp.float32)
@@ -159,13 +158,13 @@ def test_exact_topk_2phase_extraction_precision_pinned():
 def test_topk_all_tiles_gemm_precision_pinned():
     """The sim GEMM and the extraction matmul inside the tiled evaluator
     must both carry HIGHEST precision (f32-table eval would otherwise
-    score at bf16 fidelity on TPU, unlike the reference's f32 GEMM)."""
+    score at TF32 fidelity on a GPU, unlike the reference's f32 GEMM)."""
     import re
 
     import jax
     import numpy as np
 
-    from heat_tpu.evaluation.evaluator import TiledEvaluator
+    from heat_cf.evaluation.evaluator import TiledEvaluator
 
     rng = np.random.default_rng(0)
     pairs = np.stack(
@@ -176,7 +175,7 @@ def test_topk_all_tiles_gemm_precision_pinned():
     item = rng.normal(size=(8192, 16)).astype(np.float32)
     # Trigger one topk call, then inspect the cached jitted lowering.
     ev.topk(user, item, 10)
-    from heat_tpu.evaluation import evaluator as EV
+    from heat_cf.evaluation import evaluator as EV
 
     txt = jax.jit(
         lambda u, i: EV.exact_topk_2phase(u @ i.T, 10),
@@ -196,12 +195,12 @@ def test_sharded_topk_matches_tiled_evaluator():
     single-device TiledEvaluator exactly — scores always; ids up to ties."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from heat_tpu.evaluation.evaluator import (
+    from heat_cf.evaluation.evaluator import (
         pack_train_bits,
         sharded_topk,
         sharded_topk_supported,
     )
-    from heat_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+    from heat_cf.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 
     rng = np.random.default_rng(0)
     U, I, d, k = 64, 256, 16, 10
@@ -238,34 +237,22 @@ def test_sharded_topk_matches_tiled_evaluator():
         1 for u in range(U) for j in range(k) if (u, int(got[u, j])) in mask_set
     )
     assert hits == 0
-    # Approx mode runs and overlaps heavily with exact.
-    s2, ids2 = sharded_topk(
-        mesh, u_sh, i_sh, b_sh, k, exact=False, recall_target=0.95,
-        user_chunk=16,
-    )
-    overlap = np.mean(
-        [
-            len(set(ids2[u].tolist()) & set(got[u].tolist())) / k
-            for u in range(U)
-        ]
-    )
-    assert overlap > 0.8, overlap
 
 
 def test_sharded_topk_odd_items_padded():
     """ANY item count must take the shard_map path after item-axis padding
-    (VERDICT r2 item 2: AmazonBooks' 91,599 items previously fell back to
+    (AmazonBooks' 91,599 items previously fell back to
     the O(I*d)-per-host allgather). An odd I, padded via sharded_pad_items
     (zero rows + pad bits), must reproduce the single-device evaluator."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from heat_tpu.evaluation.evaluator import (
+    from heat_cf.evaluation.evaluator import (
         pack_train_bits,
         sharded_pad_items,
         sharded_topk,
         sharded_topk_supported,
     )
-    from heat_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+    from heat_cf.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 
     rng = np.random.default_rng(3)
     U, I, d, k = 64, 251, 16, 10  # 251: prime, not lane- or word-aligned
@@ -308,7 +295,7 @@ def test_sharded_topk_odd_items_padded():
 def test_device_metric_sums_combines():
     """device_metric_sums is the exact combinable form: sums/count equals
     evaluate_metrics_device on the same inputs."""
-    from heat_tpu.evaluation.metrics import (
+    from heat_cf.evaluation.metrics import (
         device_metric_sums,
         evaluate_metrics_device,
         pad_truth,

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from heat_tpu.config import CFConfig
-from heat_tpu.data.synthetic import synthetic_click_dataset
-from heat_tpu.export import export_embeddings, load_embeddings
-from heat_tpu.train.engine import Engine
+from heat_cf.config import CFConfig
+from heat_cf.data.synthetic import synthetic_click_dataset
+from heat_cf.export import export_embeddings, load_embeddings
+from heat_cf.train.engine import Engine
 
 
 def test_export_roundtrip(tmp_path):
@@ -34,7 +34,7 @@ def test_export_roundtrip(tmp_path):
 def test_export_sharded_state(tmp_path):
     import jax
 
-    from heat_tpu.parallel.mesh import default_mesh_shape, make_mesh
+    from heat_cf.parallel.mesh import default_mesh_shape, make_mesh
 
     train, _ = synthetic_click_dataset(
         num_users=64, num_items=128, clicks_per_user=10, max_his=6, seed=3

@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from heat_tpu.config import CFConfig
-from heat_tpu.models.state import TrainState
-from heat_tpu.train.samplers import SamplerState
-from heat_tpu.train.scatter import DENSE_ROWS_THRESHOLD
-from heat_tpu.train.train_step import Batch, train_step
+from heat_cf.config import CFConfig
+from heat_cf.models.state import TrainState
+from heat_cf.train.samplers import SamplerState
+from heat_cf.train.scatter import DENSE_ROWS_THRESHOLD
+from heat_cf.train.train_step import Batch, train_step
 
 NUM_USERS = 100_000_000
 NUM_ITEMS = 10_000_000

@@ -4,7 +4,7 @@ follows the reference formulas (cf/metrics.py:39-158) literally."""
 import numpy as np
 import pytest
 
-from heat_tpu.evaluation.metrics import (
+from heat_cf.evaluation.metrics import (
     evaluate_metrics,
     evaluate_sim_matrix,
     parse_metric,
@@ -139,7 +139,7 @@ def test_device_metrics_match_host():
     """The on-device metric path (only scalars leave the device) must agree
     with the host path on every metric, including users with no test
     items (excluded from the mean)."""
-    from heat_tpu.evaluation.metrics import (
+    from heat_cf.evaluation.metrics import (
         evaluate_metrics_device,
         pad_truth,
     )

@@ -67,7 +67,7 @@ def test_two_process_training_full_variant():
 def test_two_process_fused_epochs():
     """The multi-host fused multi-epoch programs (per-epoch-shuffled
     stream + fixed stream) reproduce sequential per-epoch dispatches
-    exactly across 2 real processes (VERDICT r2 item 1)."""
+    exactly across 2 real processes."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
@@ -96,7 +96,7 @@ def test_two_process_fused_epochs():
 def test_two_process_subepoch_partitioning():
     """Sub-epoch item partitioning across 2 real processes: same-seeded
     host RNG partitions agree cross-host and the trajectory lands near a
-    1-process run (VERDICT r2 item 5)."""
+    1-process run."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from heat_tpu.config import CFConfig
-from heat_tpu.models.aggregator import aggregate_history, history_mean
-from heat_tpu.ops.losses import pairwise_logistic_loss, sample_losses
-from heat_tpu.ops.similarity import pair_scores
+from heat_cf.config import CFConfig
+from heat_cf.models.aggregator import aggregate_history, history_mean
+from heat_cf.ops.losses import pairwise_logistic_loss, sample_losses
+from heat_cf.ops.similarity import pair_scores
 
 
 def test_cosine_scores_match_numpy():
@@ -83,7 +83,7 @@ def test_ccl_loss():
 
 
 def test_sigmoid_stable_and_grad():
-    from heat_tpu.ops.activations import sigmoid, sigmoid_grad
+    from heat_cf.ops.activations import sigmoid, sigmoid_grad
 
     x = jnp.asarray([-100.0, -1.0, 0.0, 1.0, 100.0])
     s = np.asarray(sigmoid(x))
@@ -129,15 +129,14 @@ def test_aggregate_blend():
 def test_train_step_named_scopes_present():
     """The reference's time_map phase names (thread_buffer.hpp:32-46) must
     appear as jax.named_scope labels in the lowered train step, so profiler
-    traces map onto Engine::performance_breakdown's taxonomy (VERDICT r1
-    item 8 / weak-point 2)."""
+    traces map onto Engine::performance_breakdown's taxonomy."""
     import jax
     import jax.numpy as jnp
 
-    from heat_tpu.config import CFConfig
-    from heat_tpu.models.state import init_train_state
-    from heat_tpu.train.samplers import init_sampler_state
-    from heat_tpu.train.train_step import Batch, train_step
+    from heat_cf.config import CFConfig
+    from heat_cf.models.state import init_train_state
+    from heat_cf.train.samplers import init_sampler_state
+    from heat_cf.train.train_step import Batch, train_step
 
     cfg = CFConfig(
         emb_dim=16, num_users=32, num_items=64, max_his=4, num_negs=3,

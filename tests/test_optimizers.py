@@ -13,12 +13,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from heat_tpu.config import CFConfig, config_from_dicts
-from heat_tpu.data.synthetic import synthetic_click_dataset
-from heat_tpu.models.state import init_train_state
-from heat_tpu.parallel.mesh import make_mesh
-from heat_tpu.train.engine import Engine
-from heat_tpu.train.scatter import (
+from heat_cf.config import CFConfig, config_from_dicts
+from heat_cf.data.synthetic import synthetic_click_dataset
+from heat_cf.models.state import init_train_state
+from heat_cf.parallel.mesh import make_mesh
+from heat_cf.train.engine import Engine
+from heat_cf.train.scatter import (
     _apply_row_updates_opt_dense,
     _apply_row_updates_opt_sorted,
     dense_opt_update,

@@ -1,4 +1,4 @@
-"""Parity of the batched TPU train step against the sequential numpy oracle.
+"""Parity of the batched device train step against the sequential numpy oracle.
 
 The oracle (tests/oracle.py) implements the reference's per-sample math and
 update semantics exactly. On batches whose ids are internally unique (and
@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from heat_tpu.config import CFConfig
-from heat_tpu.models.state import TrainState
-from heat_tpu.train.samplers import NegSample, SamplerState
-from heat_tpu.train.train_step import Batch, train_step
+from heat_cf.config import CFConfig
+from heat_cf.models.state import TrainState
+from heat_cf.train.samplers import NegSample, SamplerState
+from heat_cf.train.train_step import Batch, train_step
 
 import oracle
 
@@ -65,7 +65,7 @@ def disjoint_batch(rng, num_samples):
 
 def run_batched(cfg, state, users, pos, negs, his_items, his_masks):
     """Drive train_step with pinned negatives via a stub sampler."""
-    import heat_tpu.train.train_step as ts
+    import heat_cf.train.train_step as ts
 
     orig = ts.sample_negatives
     try:
@@ -207,7 +207,7 @@ def test_padding_rows_are_inert():
     pad_pos = rng.integers(0, 300, 8).astype(np.int32)
     pad_negs = rng.integers(0, 300, (8, 3)).astype(np.int32)
 
-    import heat_tpu.train.train_step as ts
+    import heat_cf.train.train_step as ts
 
     all_negs = np.concatenate([negs, pad_negs])
     orig = ts.sample_negatives

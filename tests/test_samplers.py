@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from heat_tpu.config import CFConfig, NEG_SAMPLER_TILE
-from heat_tpu.train.samplers import init_sampler_state, sample_negatives
+from heat_cf.config import CFConfig, NEG_SAMPLER_TILE
+from heat_cf.train.samplers import init_sampler_state, sample_negatives
 
 
 def test_uniform_range_and_pos_avoidance():
@@ -75,7 +75,7 @@ def test_derive_tile_params_auto_tuning():
     """Alg.-1-style auto tile sizing: reproduces the reference's shipped
     AmazonBooks tuning at its geometry, rounds to lanes, respects the item
     count, and never fires more than one refresh per batch."""
-    from heat_tpu.train.samplers import derive_tile_params
+    from heat_cf.train.samplers import derive_tile_params
 
     cfg = CFConfig(
         emb_dim=64, num_negs=16, batch_size=8192, num_items=91_599,
@@ -92,8 +92,8 @@ def test_derive_tile_params_auto_tuning():
     assert t % 128 == 0 and t <= 300
     assert r >= small.batch_size
 
-    from heat_tpu.data.synthetic import synthetic_click_dataset
-    from heat_tpu.train.engine import Engine
+    from heat_cf.data.synthetic import synthetic_click_dataset
+    from heat_cf.train.engine import Engine
 
     train, test = synthetic_click_dataset(
         num_users=100, num_items=400, clicks_per_user=10, max_his=4, seed=1
@@ -116,9 +116,9 @@ def test_constrained_tile_sampling_touches_only_pool_rows():
     item."""
     import dataclasses
 
-    from heat_tpu.config import CFConfig as C
-    from heat_tpu.models.state import init_train_state
-    from heat_tpu.train.train_step import Batch, train_step
+    from heat_cf.config import CFConfig as C
+    from heat_cf.models.state import init_train_state
+    from heat_cf.train.train_step import Batch, train_step
 
     cfg = C(
         num_users=40, num_items=60, emb_dim=8, num_negs=4, max_his=5,

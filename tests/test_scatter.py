@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from heat_tpu.train.scatter import (
+from heat_cf.train.scatter import (
     _apply_row_updates_dense,
     _apply_row_updates_sorted,
     segment_sum_by_id,
@@ -119,7 +119,7 @@ def test_fused_writeback_matches_set_then_update(seed, l2):
 
 @pytest.mark.parametrize("adam", [False, True])
 def test_fused_writeback_opt_matches_set_then_update(adam):
-    from heat_tpu.train.scatter import _apply_row_updates_opt_sorted
+    from heat_cf.train.scatter import _apply_row_updates_opt_sorted
 
     table, ids, grads, _ = _random_case(7)
     rng = np.random.default_rng(11)
@@ -174,7 +174,7 @@ def test_direct_matches_dedup_when_clip_unbound(seed, l2):
     path reads the post-write-back table row, so direct gets rows=wb.
     l2 itself is applied per occurrence in direct mode (vs once per
     touched row), so the l2 case uses duplicate-free ids."""
-    from heat_tpu.train.scatter import apply_row_updates_direct
+    from heat_cf.train.scatter import apply_row_updates_direct
 
     table, ids, grads, _ = _random_case(seed)  # duplicates + padding
     if l2:
@@ -211,7 +211,7 @@ def test_direct_clips_per_occurrence():
     on one row under clip 0.5 move it by 2*lr*0.5 (dedup: lr*0.5... no —
     dedup clips the SUM at 1.0->0.5; direct clips each at 0.5 then sums
     to 1.0)."""
-    from heat_tpu.train.scatter import apply_row_updates_direct
+    from heat_cf.train.scatter import apply_row_updates_direct
 
     table = jnp.zeros((4, 2), jnp.float32)
     ids = jnp.asarray([1, 1], jnp.int32)

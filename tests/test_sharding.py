@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from heat_tpu.config import CFConfig
-from heat_tpu.data.synthetic import synthetic_click_dataset
-from heat_tpu.parallel.mesh import default_mesh_shape, make_mesh
-from heat_tpu.train.engine import Engine
+from heat_cf.config import CFConfig
+from heat_cf.data.synthetic import synthetic_click_dataset
+from heat_cf.parallel.mesh import default_mesh_shape, make_mesh
+from heat_cf.train.engine import Engine
 
 
 def _cfg():
@@ -94,7 +94,7 @@ def test_sharded_multi_epoch_training(data):
 
 def test_sharded_fused_epochs_match_per_epoch(data):
     """train_epochs(n) under a mesh (the fused multi-epoch device program,
-    now shardable — VERDICT r1 item 3) must reproduce n sequential
+    now shardable) must reproduce n sequential
     train_one_epoch calls on the SAME mesh: same key draws, same shuffle,
     same batch shardings, same losses and tables."""
     train, test = data

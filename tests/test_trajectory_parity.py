@@ -28,13 +28,13 @@ import numpy as np
 import pytest
 
 import oracle
-from heat_tpu.config import CFConfig
-from heat_tpu.data.datasets import ClickDataset
-from heat_tpu.data.synthetic import synthetic_click_dataset
-from heat_tpu.evaluation.evaluator import TiledEvaluator
-from heat_tpu.evaluation.metrics import evaluate_metrics
-from heat_tpu.train.engine import Engine
-from heat_tpu.train.samplers import NegSample
+from heat_cf.config import CFConfig
+from heat_cf.data.datasets import ClickDataset
+from heat_cf.data.synthetic import synthetic_click_dataset
+from heat_cf.evaluation.evaluator import TiledEvaluator
+from heat_cf.evaluation.metrics import evaluate_metrics
+from heat_cf.train.engine import Engine
+from heat_cf.train.samplers import NegSample
 
 
 def _block_disjoint_dataset(rng, num_users, items_train, num_items, max_his,
@@ -178,7 +178,7 @@ def test_multi_epoch_trajectory_matches_oracle_exactly():
 
     # Pin the engine's negative draws to the same schedule, indexed by the
     # sampler's cumulative sample counter.
-    import heat_tpu.train.train_step as ts
+    import heat_cf.train.train_step as ts
 
     neg_table = jnp.asarray(neg_draws)
     orig = ts.sample_negatives
@@ -220,8 +220,7 @@ def _overlapping_block_dataset(rng, num_users, items_train, num_items,
     every step reads user rows and grad-accumulator rows the previous
     step just updated, and positives recur while their accumulated
     gradients are hot. This is the cross-step read-after-write /
-    accumulator stress the fully block-disjoint dataset cannot exert
-    (VERDICT r2 item 9)."""
+    accumulator stress the fully block-disjoint dataset cannot exert."""
     pairs, negs = [], []
     prev_users = prev_ids = None
     half_u = block // 2
@@ -318,7 +317,7 @@ def test_overlapping_blocks_trajectory_matches_oracle():
         m, data, neg_draws, cfg, EPOCHS, zero_at_epoch_end=True
     )
 
-    import heat_tpu.train.train_step as ts
+    import heat_cf.train.train_step as ts
 
     neg_table = jnp.asarray(neg_draws)
     orig = ts.sample_negatives
@@ -449,8 +448,8 @@ def test_trajectory_tracks_oracle_statistically():
     # duplicate users read stale rows while gradients are still large:
     # measured 7.4% here) and the trajectories then CONVERGE (2.9%, 0.8%)
     # — so the band tightens per epoch, which a semantically-broken step
-    # cannot satisfy. Bands are ~2x the measured envelope (VERDICT r2
-    # item 9), so e.g. a ~5% scale bug inside epochs 2-3 now fails.
+    # cannot satisfy. Bands are ~2x the measured envelope, so e.g. a ~5%
+    # scale bug inside epochs 2-3 now fails.
     bands = [0.10, 0.058, 0.016]
     for (le, lo), band in zip(zip(engine_losses, oracle_losses), bands):
         assert abs(le - lo) / lo < band, (engine_losses, oracle_losses)
